@@ -1,6 +1,6 @@
 """Camera-model + camera-aware feature demo.
 
-The TPU-native equivalent of the reference's ``test-cameras`` binary
+The JAX equivalent of the reference's ``test-cameras`` binary
 (``brisk/src/test-cameras.cc:40-174``): build distorted cameras, project
 and unproject point clouds, and run camera-aware (virtual-undistorted)
 feature extraction on a synthetic capture.
@@ -15,13 +15,13 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from ethzasl_brisk_tpu.geometry import (
+    from ethzasl_brisk_jax.geometry import (
         EquidistantDistortion,
         PinholeCamera,
         RadialTangentialDistortion,
     )
-    from ethzasl_brisk_tpu.geometry.camera_aware import CameraAwareFeature
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
+    from ethzasl_brisk_jax.geometry.camera_aware import CameraAwareFeature
+    from ethzasl_brisk_jax.pipeline import BriskFeature
 
     rng = np.random.default_rng(0)
     for name, dist in [

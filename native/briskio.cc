@@ -1,8 +1,8 @@
-// briskio — native IO runtime for ethzasl_brisk_tpu.
+// briskio — native IO runtime for ethzasl_brisk_jax.
 //
 // The reference's runtime is C++ (pgm IO: brisk/src/brisk-opencv.cc:67+;
 // golden-set serialization: brisk/src/test/serialization.{h,cc}); this is
-// the TPU framework's native counterpart: a CPython extension providing
+// the JAX framework's native counterpart: a CPython extension providing
 //   * read_pgm(path) -> (height, width, bytes)        [8-bit binary P5/P2]
 //   * write_pgm(path, height, width, bytes)
 //   * read_batch(paths, n_threads) -> list[(h, w, bytes)]
@@ -226,7 +226,7 @@ PyMethodDef Methods[] = {
 
 struct PyModuleDef Module = {
     PyModuleDef_HEAD_INIT, "briskio",
-    "Native IO runtime for ethzasl_brisk_tpu", -1, Methods,
+    "Native IO runtime for ethzasl_brisk_jax", -1, Methods,
 };
 
 }  // namespace

@@ -1,7 +1,7 @@
 """Build the native briskio extension in-place.
 
 Usage: python native/build.py
-Produces ethzasl_brisk_tpu/_native/briskio*.so; core.image_io picks it up
+Produces ethzasl_brisk_jax/_native/briskio*.so; core.image_io picks it up
 automatically (pure-Python fallback otherwise).
 """
 import os
@@ -11,7 +11,7 @@ import sysconfig
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
-OUT_DIR = os.path.join(REPO, "ethzasl_brisk_tpu", "_native")
+OUT_DIR = os.path.join(REPO, "ethzasl_brisk_jax", "_native")
 
 
 def main():

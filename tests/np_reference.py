@@ -153,3 +153,49 @@ def harris_scores_f32(img):
     out = np.zeros((h, w), np.float32)
     out[2 : h - 2, 2 : w - 2] = score[2 : h - 2, 2 : w - 2]
     return out
+
+
+def maxima2d(scores: np.ndarray, threshold, border: int = 2) -> np.ndarray:
+    """Scalar 2-D maxima (Get2dMaxima): >= threshold and >= all eight
+    neighbours, on rows/cols [border, n-border)."""
+    h, w = scores.shape
+    out = np.zeros((h, w), bool)
+    for i in range(border, h - border):
+        for j in range(border, w - border):
+            c = scores[i, j]
+            if c < threshold:
+                continue
+            out[i, j] = all(
+                scores[i + dy, j + dx] <= c
+                for dy in (-1, 0, 1)
+                for dx in (-1, 0, 1)
+                if (dy, dx) != (0, 0)
+            )
+    return out
+
+
+def box_mean(img: np.ndarray, xf, yf, sigma) -> np.ndarray:
+    """Area-weighted mean intensity over the square [xf - sigma, xf +
+    sigma] x [yf - sigma, yf + sigma], pixel (r, c) covering
+    [c - 0.5, c + 0.5] x [r - 0.5, r + 0.5], in float64: what BRISK's
+    box SmoothedIntensity approximates in fixed point. Broadcasts over
+    the tap arrays."""
+    img = np.asarray(img, np.float64)
+    xf, yf, sigma = np.broadcast_arrays(
+        np.asarray(xf, np.float64), np.asarray(yf, np.float64),
+        np.asarray(sigma, np.float64),
+    )
+
+    def weights(c, s, n):
+        centers = np.arange(n, dtype=np.float64)
+        lo = np.maximum(centers - 0.5, c - s)
+        hi = np.minimum(centers + 0.5, c + s)
+        return np.clip(hi - lo, 0.0, None)
+
+    out = np.empty(xf.shape)
+    h, w = img.shape
+    for idx in np.ndindex(xf.shape):
+        wx = weights(xf[idx], sigma[idx], w)
+        wy = weights(yf[idx], sigma[idx], h)
+        out[idx] = wy @ img @ wx / (wx.sum() * wy.sum())
+    return out

@@ -27,7 +27,7 @@ def tex():
 def test_u16_detect_matches_u8(tex):
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.detect.scale_space import (
+    from ethzasl_brisk_jax.detect.scale_space import (
         DetectorConfig,
         detect_keypoints,
     )
@@ -68,7 +68,7 @@ def test_u16_detect_matches_u8(tex):
 def test_u16_describe_matches_u8(tex):
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
+    from ethzasl_brisk_jax.pipeline import BriskFeature
 
     feature = BriskFeature(
         octaves=0, uniformity_radius=0.0, absolute_threshold=40.0,

@@ -16,9 +16,7 @@ images, at two strictness levels:
   near-exact floats (<= 2 ULP-class tolerance, >= 99% bitwise) — the
   value-class-bug tripwire that still runs the production graph shape.
 
-The TPU backend comparison (deterministic emitters, full bitwise on the
-bench frames) lives in tools/probes/probe_ast_dense.py and is asserted
-by bench.py before timing dense AST runs.
+The GPU-vs-CPU comparison of the dense AST step runs in chip_smoke.py.
 """
 import numpy as np
 import pytest
@@ -27,10 +25,10 @@ FIELDS = ("valid", "octave", "x", "y", "size", "response", "angle")
 
 
 def _detectors(**kw):
-    from ethzasl_brisk_tpu.detect.ast_dense import (
+    from ethzasl_brisk_jax.detect.ast_dense import (
         detect_ast_keypoints_dense,
     )
-    from ethzasl_brisk_tpu.detect.ast_scale_space import (
+    from ethzasl_brisk_jax.detect.ast_scale_space import (
         detect_ast_keypoints,
     )
 
@@ -164,8 +162,8 @@ def test_stairs_twin():
     import jax
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.detect.ast_dense import _stairs_np
-    from ethzasl_brisk_tpu.detect.ast_scale_space import (
+    from ethzasl_brisk_jax.detect.ast_dense import _stairs_np
+    from ethzasl_brisk_jax.detect.ast_scale_space import (
         _dbl_div,
         _fmul,
         _trunc_i32,
@@ -214,7 +212,7 @@ def test_dense_facade_dispatch(img1):
     import jax
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.pipeline import BriskFeatureDetector
+    from ethzasl_brisk_jax.pipeline import BriskFeatureDetector
 
     crop = jnp.asarray(np.asarray(img1)[:240, :320])
     det_c = BriskFeatureDetector(threshold=70, octaves=3,

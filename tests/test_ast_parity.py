@@ -11,7 +11,7 @@ outliers under the known homography at 5 px.
 import numpy as np
 import pytest
 
-from ethzasl_brisk_tpu.core.golden import read_set
+from ethzasl_brisk_jax.core.golden import read_set
 
 from .conftest import TEST_DATA
 
@@ -34,7 +34,7 @@ def ast_golden():
 
 @pytest.fixture(scope="module")
 def detector():
-    from ethzasl_brisk_tpu.pipeline import BriskFeatureDetector
+    from ethzasl_brisk_jax.pipeline import BriskFeatureDetector
 
     # Golden AST run: BriskFeatureDetector(70) default octaves=3
     # (test-binary-equal.cc:84,325).
@@ -97,8 +97,8 @@ def test_match_zero_outliers(test_data_dir, detector):
     """test-match.cc: best Hamming match < 50, 0 outliers @ 5 px."""
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.core.image_io import read_pgm
-    from ethzasl_brisk_tpu.match.matcher import hamming_distance_matrix
+    from ethzasl_brisk_jax.core.image_io import read_pgm
+    from ethzasl_brisk_jax.match.matcher import hamming_distance_matrix
 
     img1 = read_pgm(str(test_data_dir / "img1.pgm"))
     img2 = read_pgm(str(test_data_dir / "img2.pgm"))
@@ -134,7 +134,7 @@ def test_compute_scale_passed_keypoints(img1, detector):
     the detector's own outputs pass by construction)."""
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.pipeline import compute_scale
+    from ethzasl_brisk_jax.pipeline import compute_scale
 
     image = jnp.asarray(img1[:480, :640])
     det = detector._detect_jit(image)
@@ -175,9 +175,9 @@ def test_ast_pipeline_compact_describe_matches_batch():
     import jax.numpy as jnp
     from scipy import ndimage
 
-    from ethzasl_brisk_tpu.parallel import make_mesh
-    from ethzasl_brisk_tpu.parallel.frames import AstFramePipeline
-    from ethzasl_brisk_tpu.pipeline import BriskFeatureDetector
+    from ethzasl_brisk_jax.parallel import make_mesh
+    from ethzasl_brisk_jax.parallel.frames import AstFramePipeline
+    from ethzasl_brisk_jax.pipeline import BriskFeatureDetector
 
     rng = np.random.default_rng(21)
     base = rng.integers(0, 256, (2, 160, 212)).astype(np.float32)
@@ -192,10 +192,8 @@ def test_ast_pipeline_compact_describe_matches_batch():
         raw_cache_model="emulated",
     )
     mesh = make_mesh(1, 1)
-    a = AstFramePipeline(detector=det, mesh=mesh, patch_h=128,
-                         patch_w=128, describe_capacity=0)
-    b = AstFramePipeline(detector=det, mesh=mesh, patch_h=128,
-                         patch_w=128, describe_capacity=1024)
+    a = AstFramePipeline(detector=det, mesh=mesh, describe_capacity=0)
+    b = AstFramePipeline(detector=det, mesh=mesh, describe_capacity=1024)
     with mesh:
         kps_a, desc_a, _, _ = a.step(frames)
         kps_b, desc_b, _, _ = b.step(frames)
@@ -218,7 +216,7 @@ def test_ast_per_layer_candidate_caps_bitwise():
     import jax.numpy as jnp
     from scipy import ndimage
 
-    from ethzasl_brisk_tpu.pipeline import BriskFeatureDetector
+    from ethzasl_brisk_jax.pipeline import BriskFeatureDetector
 
     rng = np.random.default_rng(31)
     base = rng.integers(0, 256, (160, 212)).astype(np.float32)

@@ -1,4 +1,6 @@
 """Bundle-adjustment tests: SE(3) round-trips and synthetic window BA."""
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -9,7 +11,7 @@ class TestSe3:
     def test_exp_log_roundtrip(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.ba import se3_exp, se3_log
+        from ethzasl_brisk_jax.ba import se3_exp, se3_log
 
         rng = np.random.default_rng(0)
         xi = jnp.asarray(rng.uniform(-1, 1, (64, 6)), jnp.float32)
@@ -21,7 +23,7 @@ class TestSe3:
     def test_rotation_proper(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.ba import so3_exp
+        from ethzasl_brisk_jax.ba import so3_exp
 
         rng = np.random.default_rng(1)
         w = jnp.asarray(rng.uniform(-2, 2, (32, 3)), jnp.float32)
@@ -37,7 +39,7 @@ class TestWindowBa:
     def _make_problem(self, noise_pose, noise_pt, rng):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.ba import BaProblem, so3_exp
+        from ethzasl_brisk_jax.ba import BaProblem, so3_exp
 
         k, n_lm = 6, 200
         fu = fv = 400.0
@@ -83,8 +85,8 @@ class TestWindowBa:
         ), (r_gt, t_cam, pts_gt)
 
     def test_converges(self):
-        from ethzasl_brisk_tpu.ba import solve_window_ba
-        from ethzasl_brisk_tpu.ba.window import _residual_and_jacobians
+        from ethzasl_brisk_jax.ba import solve_window_ba
+        from ethzasl_brisk_jax.ba.window import _residual_and_jacobians
 
         rng = np.random.default_rng(2)
         prob, gt = self._make_problem(0.02, 0.10, rng)
@@ -108,11 +110,11 @@ class TestWindowBa:
         assert costs[-1] < costs[0] * 1e-4
 
     def test_lm_converges_and_is_monotone(self):
-        from ethzasl_brisk_tpu.ba import (
+        from ethzasl_brisk_jax.ba import (
             robust_cost,
             solve_window_ba_lm,
         )
-        from ethzasl_brisk_tpu.ba.window import _residual_and_jacobians
+        from ethzasl_brisk_jax.ba.window import _residual_and_jacobians
 
         rng = np.random.default_rng(3)
         prob, _ = self._make_problem(0.02, 0.10, rng)
@@ -135,11 +137,11 @@ class TestWindowBa:
     def test_lm_cannot_diverge_on_degenerate_geometry(self):
         """Planar scene, near-zero parallax: fixed-damping GN can run
         away along the unconstrained direction; LM must reject those
-        steps and keep the objective non-increasing (round-3 VERDICT
-        item 5 — replaces the post-hoc --ba-max-shift gate)."""
+        steps and keep the objective non-increasing (replaces the
+        post-hoc --ba-max-shift gate)."""
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.ba import (
+        from ethzasl_brisk_jax.ba import (
             BaProblem,
             robust_cost,
             solve_window_ba_lm,
@@ -200,7 +202,7 @@ class TestWindowBa:
         poses closer to ground truth."""
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.ba import (
+        from ethzasl_brisk_jax.ba import (
             solve_window_ba_lm,
             solve_window_ba_trimmed,
         )
@@ -279,10 +281,10 @@ class TestDistributedBa:
 
             _pytest.skip("needs 8 virtual devices")
 
-        from ethzasl_brisk_tpu.ba import solve_window_ba
-        from ethzasl_brisk_tpu.ba.window import _residual_and_jacobians
-        from ethzasl_brisk_tpu.parallel import make_mesh
-        from ethzasl_brisk_tpu.parallel.dist_ba import (
+        from ethzasl_brisk_jax.ba import solve_window_ba
+        from ethzasl_brisk_jax.ba.window import _residual_and_jacobians
+        from ethzasl_brisk_jax.parallel import make_mesh
+        from ethzasl_brisk_jax.parallel.dist_ba import (
             partition_problem,
             solve_window_ba_sharded,
         )
@@ -322,11 +324,11 @@ class TestPoseGraph:
         error and closes the loop."""
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.ba.pose_graph import (
+        from ethzasl_brisk_jax.ba.pose_graph import (
             PoseGraph,
             optimize_pose_graph,
         )
-        from ethzasl_brisk_tpu.ba.se3 import so3_exp
+        from ethzasl_brisk_jax.ba.se3 import so3_exp
 
         n = 12
         rng = np.random.default_rng(7)
@@ -387,8 +389,8 @@ class TestPoseGraph:
 
         # Edge-partitioned solve over the virtual 8-device mesh (config-5
         # slice): same solution, psum-reduced assembly.
-        from ethzasl_brisk_tpu.parallel import make_mesh
-        from ethzasl_brisk_tpu.parallel.dist_pg import (
+        from ethzasl_brisk_jax.parallel import make_mesh
+        from ethzasl_brisk_jax.parallel.dist_pg import (
             optimize_pose_graph_sharded,
             partition_edges,
         )
@@ -410,7 +412,7 @@ class TestPoseGraph:
 class TestMultiHost:
     def test_two_process_distributed_ba(self, tmp_path):
         """Config-5 slice: jax.distributed across two OS processes (the
-        DCN analog), landmark-sharded BA with cross-process psum."""
+        multi-host case), landmark-sharded BA with cross-process psum."""
         import subprocess
         import sys
 
@@ -419,7 +421,7 @@ class TestMultiHost:
             subprocess.Popen(
                 [sys.executable, "tools/multihost_worker.py", str(i), "2",
                  str(out)],
-                cwd="/root/repo",
+                cwd=pathlib.Path(__file__).resolve().parents[1],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
             )

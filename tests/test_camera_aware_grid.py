@@ -19,7 +19,7 @@ def jnp():
 
 @pytest.fixture(scope="module")
 def feature():
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
+    from ethzasl_brisk_jax.pipeline import BriskFeature
 
     return BriskFeature(
         octaves=0,
@@ -45,8 +45,8 @@ def test_identity_grid_matches_plain_pipeline(feature, jnp):
     the original camera (focal=fu, center=principal point, size=image),
     so detections+descriptors must match the plain pipeline exactly on
     keypoints that survive the grid's extra border filter."""
-    from ethzasl_brisk_tpu.geometry import PinholeCamera
-    from ethzasl_brisk_tpu.geometry.camera_aware import (
+    from ethzasl_brisk_jax.geometry import PinholeCamera
+    from ethzasl_brisk_jax.geometry.camera_aware import (
         CameraAwareFeatureGrid,
     )
 
@@ -108,11 +108,11 @@ def test_grid_beats_single_view_near_border(feature, jnp):
     """Strong barrel distortion: the single virtual view loses border
     keypoints (they fall outside its usable area / suffer heavy scale
     change); the grid's per-region views keep describing them."""
-    from ethzasl_brisk_tpu.geometry import (
+    from ethzasl_brisk_jax.geometry import (
         PinholeCamera,
         RadialTangentialDistortion,
     )
-    from ethzasl_brisk_tpu.geometry.camera_aware import (
+    from ethzasl_brisk_jax.geometry.camera_aware import (
         CameraAwareFeature,
         CameraAwareFeatureGrid,
         bilinear_remap,
@@ -170,8 +170,8 @@ def test_grid_beats_single_view_near_border(feature, jnp):
 def test_extraction_direction(feature, jnp):
     """setExtractionDirection analog: e_C = +y must yield ~90 deg angles
     near the image center of an undistorted camera."""
-    from ethzasl_brisk_tpu.geometry import PinholeCamera
-    from ethzasl_brisk_tpu.geometry.camera_aware import (
+    from ethzasl_brisk_jax.geometry import PinholeCamera
+    from ethzasl_brisk_jax.geometry.camera_aware import (
         CameraAwareFeatureGrid,
     )
 

@@ -7,7 +7,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ethzasl_brisk_tpu.utils.checkpoint import (  # noqa: E402
+from ethzasl_brisk_jax.utils.checkpoint import (  # noqa: E402
     CheckpointManager,
     MapState,
     state_from_ba_problem,
@@ -54,7 +54,7 @@ def test_restore_or_init_fresh(tmp_path):
 def test_resume_continues_ba(tmp_path):
     """Preemption model: solve 2 GN iterations, checkpoint, 'crash',
     restore, run 2 more — final state identical to 4 straight."""
-    from ethzasl_brisk_tpu.ba.window import BaProblem, solve_window_ba
+    from ethzasl_brisk_jax.ba.window import BaProblem, solve_window_ba
 
     rng = np.random.default_rng(3)
     n_kf, n_lm = 3, 12

@@ -1,11 +1,11 @@
-"""Library-level exactness diagnostics (VERDICT r4 item 3).
+"""Library-level exactness diagnostics.
 
 The capacity-classed perf backends (per-layer candidate caps, block
 top-k, refine caps, describe compaction) silently truncate on overflow;
 `with_diagnostics=True` must FLAG undersized caps instead, while ample
 caps certify ok without changing any output value. The reference never
 drops candidates — its sort keeps all (score-calculator.h:66-85) — so
-the diagnostics are the TPU pipeline's contract for matching that.
+the diagnostics are this pipeline's contract for matching that.
 """
 import numpy as np
 import pytest
@@ -22,7 +22,7 @@ def test_harris_diag_flags_small_caps(crop):
     import jax
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.detect.scale_space import (
+    from ethzasl_brisk_jax.detect.scale_space import (
         DetectorConfig,
         detect_keypoints,
     )
@@ -65,7 +65,7 @@ def test_harris_diag_flags_refine_and_block_topk(crop):
     import jax
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.detect.scale_space import (
+    from ethzasl_brisk_jax.detect.scale_space import (
         DetectorConfig,
         detect_keypoints,
     )
@@ -114,7 +114,7 @@ def test_ast_diag_flags_small_caps(crop):
     import jax
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.detect.ast_scale_space import (
+    from ethzasl_brisk_jax.detect.ast_scale_space import (
         ast_capacity_diagnostics,
         detect_ast_keypoints,
     )
@@ -151,10 +151,10 @@ def test_ast_diag_flags_small_caps(crop):
 def test_describe_diag_counts_describable(crop):
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.describe.extractor import (
+    from ethzasl_brisk_jax.describe.extractor import (
         extract_descriptors_compact,
     )
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
+    from ethzasl_brisk_jax.pipeline import BriskFeature
 
     feature = BriskFeature(
         octaves=2, uniformity_radius=30.0, absolute_threshold=20.0,

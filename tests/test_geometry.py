@@ -14,7 +14,7 @@ def jnp():
 
 class TestCameras:
     def test_pinhole_roundtrip(self, jnp):
-        from ethzasl_brisk_tpu.geometry import PinholeCamera
+        from ethzasl_brisk_jax.geometry import PinholeCamera
 
         cam = PinholeCamera.create(450.0, 452.0, 320.0, 240.0, 640, 480)
         rng = np.random.default_rng(0)
@@ -27,7 +27,7 @@ class TestCameras:
         assert np.all(cos[np.asarray(valid)] > 1 - 1e-5)
 
     def test_radtan_roundtrip(self, jnp):
-        from ethzasl_brisk_tpu.geometry import (
+        from ethzasl_brisk_jax.geometry import (
             PinholeCamera,
             RadialTangentialDistortion,
         )
@@ -52,7 +52,7 @@ class TestCameras:
         assert np.all(cos[np.asarray(valid)] > 1 - 1e-4)
 
     def test_equidistant_roundtrip(self, jnp):
-        from ethzasl_brisk_tpu.geometry import EquidistantDistortion
+        from ethzasl_brisk_jax.geometry import EquidistantDistortion
 
         dist = EquidistantDistortion.create(-0.01, 0.005, -0.002, 0.001)
         rng = np.random.default_rng(2)
@@ -66,7 +66,7 @@ class TestRansac:
     def test_homography(self, jnp):
         import jax
 
-        from ethzasl_brisk_tpu.geometry.ransac import ransac_homography
+        from ethzasl_brisk_jax.geometry.ransac import ransac_homography
 
         rng = np.random.default_rng(3)
         h_true = np.array(
@@ -95,7 +95,7 @@ class TestRansac:
     def test_essential(self, jnp):
         import jax
 
-        from ethzasl_brisk_tpu.geometry.ransac import (
+        from ethzasl_brisk_jax.geometry.ransac import (
             decompose_essential,
             ransac_essential,
         )
@@ -146,15 +146,15 @@ class TestCameraAware:
         keypoints map back into the distorted frame consistently."""
         import jax
 
-        from ethzasl_brisk_tpu.geometry import (
+        from ethzasl_brisk_jax.geometry import (
             PinholeCamera,
             RadialTangentialDistortion,
         )
-        from ethzasl_brisk_tpu.geometry.camera_aware import (
+        from ethzasl_brisk_jax.geometry.camera_aware import (
             CameraAwareFeature,
             bilinear_remap,
         )
-        from ethzasl_brisk_tpu.pipeline import BriskFeature
+        from ethzasl_brisk_jax.pipeline import BriskFeature
 
         rng = np.random.default_rng(6)
         from scipy import ndimage

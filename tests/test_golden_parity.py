@@ -8,7 +8,7 @@ undefined (uniformity-enforcement-inl.h:55).
 import numpy as np
 import pytest
 
-from ethzasl_brisk_tpu.core.golden import read_set
+from ethzasl_brisk_jax.core.golden import read_set
 
 from .conftest import TEST_DATA
 
@@ -23,7 +23,7 @@ def harris_golden():
 
 @pytest.fixture(scope="module")
 def harris_feature():
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
+    from ethzasl_brisk_jax.pipeline import BriskFeature
 
     # Params of the reference's golden run (test-binary-equal.cc:82-88).
     return BriskFeature(
@@ -88,10 +88,10 @@ def test_exact_angle_host_matches_reference_fixtures():
     """Pins the exact angle/theta chain (_exact_angle_host) on direction
     sums captured from the golden runs: atan2 in DOUBLE of float-cast
     sums (brisk-descriptor-extractor.cc:732 — the unqualified atan2
-    resolves to the C double function; tools/probe_angle.py verified the
-    double chain matches 454/454 + 443/443 golden angles, the atan2f
-    float-overload chain only ~55%)."""
-    from ethzasl_brisk_tpu.describe.extractor import _exact_angle_host
+    resolves to the C double function; the double chain matches 454/454
+    + 443/443 golden angles, the atan2f float-overload chain only
+    ~55%)."""
+    from ethzasl_brisk_jax.describe.extractor import _exact_angle_host
 
     fixtures = [  # (d0, d1, golden angle, theta)
         (4535757, -2590177, np.float32(-29.728842), 940),

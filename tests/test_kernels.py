@@ -6,10 +6,10 @@ kernel has a scalar twin (test-integral-image.cc, test-downsampling.cc).
 import numpy as np
 import pytest
 
-from ethzasl_brisk_tpu.kernels.downsample import halfsample8, twothirdsample8
-from ethzasl_brisk_tpu.kernels.harris import harris_score_i32
-from ethzasl_brisk_tpu.kernels.integral import integral_image_i32
-from ethzasl_brisk_tpu.kernels.nms import maxima2d_mask
+from ethzasl_brisk_jax.kernels.downsample import halfsample8, twothirdsample8
+from ethzasl_brisk_jax.kernels.harris import harris_score_i32
+from ethzasl_brisk_jax.kernels.integral import integral_image_i32
+from ethzasl_brisk_jax.kernels.nms import maxima2d_mask
 
 from . import np_reference as ref
 
@@ -106,7 +106,7 @@ class TestWarpSplit:
     def test_center_ge_warped_exact(self, affine):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.detect.scale_space import (
+        from ethzasl_brisk_jax.detect.scale_space import (
             center_ge_warped,
             warp_scores_split,
         )
@@ -165,7 +165,7 @@ class TestWarpSplit:
 
 class TestGoldenRoundtrip:
     def test_set_write_read(self, tmp_path):
-        from ethzasl_brisk_tpu.core.golden import (
+        from ethzasl_brisk_jax.core.golden import (
             GoldenEntry,
             GoldenKeyPoint,
             read_set,
@@ -197,7 +197,7 @@ class TestGoldenRoundtrip:
     def test_reference_set_roundtrip(self):
         import pathlib
 
-        from ethzasl_brisk_tpu.core.golden import read_set, write_set
+        from ethzasl_brisk_jax.core.golden import read_set, write_set
 
         src = pathlib.Path(
             "/root/reference/brisk/src/test/test_data/"
@@ -218,8 +218,8 @@ class TestV1Pattern:
     def test_v1_extractor_runs(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.core.keypoints import KeyPoints
-        from ethzasl_brisk_tpu.describe.extractor import BriskExtractor
+        from ethzasl_brisk_jax.core.keypoints import KeyPoints
+        from ethzasl_brisk_jax.describe.extractor import BriskExtractor
 
         rng = np.random.default_rng(4)
         img = jnp.asarray(rng.integers(0, 256, (120, 160), np.uint8))
@@ -239,7 +239,7 @@ class TestV1Pattern:
 
 class TestHarrisFloat:
     def test_matches_scalar(self):
-        from ethzasl_brisk_tpu.kernels.harris import harris_score_f32
+        from ethzasl_brisk_jax.kernels.harris import harris_score_f32
 
         img = random_u8(20, 24)
         got = np.asarray(harris_score_f32(img))
@@ -254,7 +254,7 @@ class TestAgastVariants:
     def test_712_shapes_and_selfconsistency(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.kernels.agast import (
+        from ethzasl_brisk_jax.kernels.agast import (
             agast7_12d_score_map,
             agast7_12s_score_map,
         )
@@ -272,7 +272,7 @@ class TestAgastVariants:
     def test_integral16(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.kernels.integral import integral_image_16_f32
+        from ethzasl_brisk_jax.kernels.integral import integral_image_16_f32
 
         img = RNG.integers(0, 65536, (16, 20), np.uint16)
         got = np.asarray(integral_image_16_f32(jnp.asarray(img)))
@@ -287,7 +287,7 @@ class TestFilters:
     def test_gauss_i16(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.kernels.filters import filter_gauss_3x3_i16
+        from ethzasl_brisk_jax.kernels.filters import filter_gauss_3x3_i16
 
         img = RNG.integers(-1000, 1000, (12, 14)).astype(np.int16)
         got = np.asarray(filter_gauss_3x3_i16(jnp.asarray(img)))
@@ -305,7 +305,7 @@ class TestFilters:
         import jax.numpy as jnp
         from scipy import ndimage
 
-        from ethzasl_brisk_tpu.kernels.filters import filter2d
+        from ethzasl_brisk_jax.kernels.filters import filter2d
 
         img = RNG.normal(size=(15, 17)).astype(np.float32)
         k = RNG.normal(size=(3, 5)).astype(np.float32)
@@ -322,7 +322,7 @@ class TestPopcount:
     def test_popcnt_xor_paths_agree(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.match.matcher import (
+        from ethzasl_brisk_jax.match.matcher import (
             hamming_distance_matrix,
             hamming_distance_matrix_popcnt,
         )
@@ -349,7 +349,7 @@ class TestTimingRegistry:
     def test_timer_and_report(self):
         import time
 
-        from ethzasl_brisk_tpu.utils.timing import Timer, Timing, timer
+        from ethzasl_brisk_jax.utils.timing import Timer, Timing, timer
 
         Timing.reset()
         with timer("unit/stage-a"):
@@ -371,7 +371,7 @@ class TestKeyPointsHelpers:
     def test_compact_and_topk(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.core.keypoints import KeyPoints
+        from ethzasl_brisk_jax.core.keypoints import KeyPoints
 
         kps = KeyPoints.from_numpy(
             x=np.array([1.0, 2.0, 3.0, 4.0]),
@@ -401,7 +401,7 @@ class TestPatternFile:
         reproduces the built-in v2 tables exactly."""
         import os
 
-        from ethzasl_brisk_tpu.core.pattern import (
+        from ethzasl_brisk_jax.core.pattern import (
             brisk_v2_pattern,
             pattern_from_file,
         )
@@ -426,7 +426,7 @@ class TestUniformity:
         direct transcription of the reference's greedy grid loop."""
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.detect.uniformity import (
+        from ethzasl_brisk_jax.detect.uniformity import (
             enforce_uniformity,
             enforce_uniformity_sequential,
         )
@@ -481,7 +481,7 @@ class TestAgastScoreMapGoldens:
 
     @pytest.fixture(scope="class")
     def crop(self, fixture):
-        from ethzasl_brisk_tpu.core.image_io import read_pgm
+        from ethzasl_brisk_jax.core.image_io import read_pgm
 
         from .conftest import TEST_DATA
 
@@ -497,7 +497,7 @@ class TestAgastScoreMapGoldens:
     def test_scoremap_matches_compiled_reference(self, fixture, crop, name):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.kernels import agast as agast_kernels
+        from ethzasl_brisk_jax.kernels import agast as agast_kernels
 
         fn = getattr(agast_kernels, f"{name}_score_map")
         got = np.asarray(fn(jnp.asarray(crop)))

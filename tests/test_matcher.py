@@ -57,7 +57,7 @@ class TestCollectionMatch:
     def test_knn_collection_matches_scalar(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.match.matcher import (
+        from ethzasl_brisk_jax.match.matcher import (
             DescriptorCollection,
             knn_match_collection,
         )
@@ -76,7 +76,7 @@ class TestCollectionMatch:
     def test_knn_collection_with_masks(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.match.matcher import (
+        from ethzasl_brisk_jax.match.matcher import (
             DescriptorCollection,
             knn_match_collection,
         )
@@ -97,7 +97,7 @@ class TestCollectionMatch:
     def test_radius_collection_counts_and_imgidx(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.match.matcher import (
+        from ethzasl_brisk_jax.match.matcher import (
             DescriptorCollection,
             radius_match_collection,
         )
@@ -127,10 +127,10 @@ class TestCollectionMatch:
 class TestRadiusOverflow:
     def test_true_counts_signal_truncation(self):
         """counts must report the TRUE in-radius population even when it
-        exceeds the static capacity (VERDICT: no silent truncation)."""
+        exceeds the static capacity (no silent truncation)."""
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.match.matcher import radius_match_all
+        from ethzasl_brisk_jax.match.matcher import radius_match_all
 
         # All-zero descriptors: every distance is 0 -> everything matches.
         q = np.zeros((3, 12), np.uint32)
@@ -147,7 +147,7 @@ class TestRadiusOverflow:
     def test_counts_respect_validity(self):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.match.matcher import radius_match_all
+        from ethzasl_brisk_jax.match.matcher import radius_match_all
 
         q = _rand_desc(5)
         t = _rand_desc(20)

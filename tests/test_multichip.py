@@ -1,9 +1,9 @@
 """Single-device vs multi-device bitwise equality.
 
-SURVEY §4 maps the reference's golden-file discipline onto the TPU scale-out
+SURVEY §4 maps the reference's golden-file discipline onto the scale-out
 design: detections, descriptors and matches must be IDENTICAL between a
 1-device run and an N-device mesh run (data-parallel frames + model-sharded
-matching). Realistic shape per the round-1 verdict: 480x640 frames,
+matching). Realistic shape: 480x640 frames,
 >=1024-keypoint caps, reference-equivalent uniformity config.
 """
 import numpy as np
@@ -24,8 +24,8 @@ def test_single_vs_multi_device_bitwise():
     import jax
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.parallel import FramePipeline, make_mesh
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
+    from ethzasl_brisk_jax.parallel import FramePipeline, make_mesh
+    from ethzasl_brisk_jax.pipeline import BriskFeature
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device virtual CPU mesh")
@@ -71,8 +71,8 @@ def test_sharded_knn_equals_dense():
     import jax
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.match.matcher import hamming_distance_matrix
-    from ethzasl_brisk_tpu.parallel import make_mesh, sharded_knn_match
+    from ethzasl_brisk_jax.match.matcher import hamming_distance_matrix
+    from ethzasl_brisk_jax.parallel import make_mesh, sharded_knn_match
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device virtual CPU mesh")

@@ -1,12 +1,9 @@
 """Regression: batched detect at the reference's own image size.
 
-Round 1 hit a flaky TPU worker fault on the batched (8, 640, 800)
-detect executable (NOTES.md). After the round-2 detect rewrite (Pallas
-Harris, scatter-free uniformity) the fault no longer reproduces — 105
-clean executions across 6 fresh processes on real reference frames
-(tools/repro_640800.py is the on-TPU harness). This CPU test pins the
-shape + values: batched and single-frame detect must agree exactly at
-(640, 800), the shape of brisk/src/test/test_data/img{1,2}.pgm.
+An earlier accelerator backend faulted on the batched (8, 640, 800)
+detect executable. This CPU test pins the shape + values: batched and
+single-frame detect must agree exactly at (640, 800), the shape of
+brisk/src/test/test_data/img{1,2}.pgm.
 """
 import os
 
@@ -16,7 +13,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ethzasl_brisk_tpu.pipeline import BriskFeature  # noqa: E402
+from ethzasl_brisk_jax.pipeline import BriskFeature  # noqa: E402
 
 REF_DATA = "/root/reference/brisk/src/test/test_data"
 
@@ -32,7 +29,7 @@ def test_batched_detect_reference_shape():
     )
 
     if os.path.isdir(REF_DATA):
-        from ethzasl_brisk_tpu.core.image_io import read_pgm
+        from ethzasl_brisk_jax.core.image_io import read_pgm
 
         img1 = read_pgm(os.path.join(REF_DATA, "img1.pgm"))
         img2 = read_pgm(os.path.join(REF_DATA, "img2.pgm"))

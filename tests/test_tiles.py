@@ -12,11 +12,11 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from ethzasl_brisk_tpu.detect.scale_space import (  # noqa: E402
+from ethzasl_brisk_jax.detect.scale_space import (  # noqa: E402
     DetectorConfig,
     detect_keypoints,
 )
-from ethzasl_brisk_tpu.parallel.tiles import detect_keypoints_tiled
+from ethzasl_brisk_jax.parallel.tiles import detect_keypoints_tiled
 
 
 def _mesh(n):

@@ -5,11 +5,11 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ethzasl_brisk_tpu.detect.scale_space import (  # noqa: E402
+from ethzasl_brisk_jax.detect.scale_space import (  # noqa: E402
     DetectorConfig,
     detect_keypoints,
 )
-from ethzasl_brisk_tpu.kernels.topk import (  # noqa: E402
+from ethzasl_brisk_jax.kernels.topk import (  # noqa: E402
     INT32_MIN,
     topk_from_mask,
     topk_int32,
@@ -176,7 +176,7 @@ def test_detect_per_layer_caps_bitwise():
 @pytest.mark.parametrize("kind", ["sparse", "ties", "uniform"])
 def test_topk_block_matches_lax(kind):
     """topk_block == lax.top_k bitwise (valid entries) when exact=True."""
-    from ethzasl_brisk_tpu.kernels.topk import topk_block
+    from ethzasl_brisk_jax.kernels.topk import topk_block
 
     seeds = {"sparse": 11, "ties": 22, "uniform": 33}
     rng = np.random.default_rng(seeds[kind])
@@ -212,7 +212,7 @@ def test_topk_block_matches_lax(kind):
 
 def test_topk_block_overflow_flag_is_sharp():
     """Flag stays True when overflow is BELOW the k-th value (harmless)."""
-    from ethzasl_brisk_tpu.kernels.topk import topk_block
+    from ethzasl_brisk_jax.kernels.topk import topk_block
 
     n, k, block, r = 16_384, 64, 2048, 32
     x = np.full(n, INT32_MIN, np.int32)
@@ -249,7 +249,7 @@ def test_detect_block_topk_bitwise_equal():
         octaves=2, absolute_threshold=20.0, max_candidates=2048,
         max_num_kpt=512, uniformity_radius=30.0,
     )
-    from ethzasl_brisk_tpu.kernels.harris import harris_score_i32
+    from ethzasl_brisk_jax.kernels.harris import harris_score_i32
 
     kp_sort = jax.jit(
         lambda im: detect_keypoints(
@@ -282,7 +282,7 @@ def test_fused_refine_bitwise_equals_per_layer():
     img = ndimage.gaussian_filter(
         rng.uniform(0, 255, (240, 320)), 1.5
     ).astype(np.uint8)
-    from ethzasl_brisk_tpu.kernels.harris import harris_score_i32
+    from ethzasl_brisk_jax.kernels.harris import harris_score_i32
 
     base = dict(
         octaves=2, absolute_threshold=20.0, max_num_kpt=512,
@@ -297,7 +297,7 @@ def test_fused_refine_bitwise_equals_per_layer():
             harris_score_i32,
         )
     )(jnp.asarray(img))
-    import ethzasl_brisk_tpu.detect.scale_space as ss
+    import ethzasl_brisk_jax.detect.scale_space as ss
     orig = ss._refine_keypoints_fused
     try:
         ss._refine_keypoints_fused = None  # force the per-layer branch
@@ -316,7 +316,7 @@ def test_fused_refine_bitwise_equals_per_layer():
                 ss._layer_accept(cands[i], scores[i].shape, cfg)
                 for i in range(n)
             ]
-            from ethzasl_brisk_tpu.core.keypoints import KeyPoints
+            from ethzasl_brisk_jax.core.keypoints import KeyPoints
             per = []
             for i in range(n):
                 xs, ys, tsc, valid, acc = ss.compact_accepted(
@@ -371,7 +371,7 @@ def test_max3x3_pair_collapse_equals_nine_compares():
     """center >= max3x3(W) (canonicalized pair) == AND of the 9 shifted
     center_ge_warped compares, on real warp pairs incl. negative scores
     and border extrapolation (the non-canonical-pair misorder bug)."""
-    from ethzasl_brisk_tpu.detect.scale_space import (
+    from ethzasl_brisk_jax.detect.scale_space import (
         _max3x3_pair,
         _shift2d,
         center_ge_warped,

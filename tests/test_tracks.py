@@ -10,12 +10,12 @@ from .test_vo import render_scene
 def test_tracks_to_ba():
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.ba import solve_window_ba
-    from ethzasl_brisk_tpu.ba.window import _residual_and_jacobians
-    from ethzasl_brisk_tpu.geometry import PinholeCamera
-    from ethzasl_brisk_tpu.match.matcher import match_with_ratio_and_crosscheck
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
-    from ethzasl_brisk_tpu.vo.tracks import build_ba_problem
+    from ethzasl_brisk_jax.ba import solve_window_ba
+    from ethzasl_brisk_jax.ba.window import _residual_and_jacobians
+    from ethzasl_brisk_jax.geometry import PinholeCamera
+    from ethzasl_brisk_jax.match.matcher import match_with_ratio_and_crosscheck
+    from ethzasl_brisk_jax.pipeline import BriskFeature
+    from ethzasl_brisk_jax.vo.tracks import build_ba_problem
 
     rng = np.random.default_rng(3)
     from scipy import ndimage
@@ -66,7 +66,7 @@ def test_tracks_to_ba():
             poses_init.append((r, t))
         else:
             dw = rng.normal(0, 0.004, 3)
-            from ethzasl_brisk_tpu.ba import so3_exp
+            from ethzasl_brisk_jax.ba import so3_exp
 
             dr = np.asarray(so3_exp(jnp.asarray(dw[None], jnp.float32)))[0]
             poses_init.append((dr @ r, t + rng.normal(0, 0.02, 3)))
@@ -112,8 +112,8 @@ def test_residual_gate_drops_moving_track():
     """
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.geometry import PinholeCamera
-    from ethzasl_brisk_tpu.vo.tracks import build_ba_problem
+    from ethzasl_brisk_jax.geometry import PinholeCamera
+    from ethzasl_brisk_jax.vo.tracks import build_ba_problem
 
     rng = np.random.default_rng(0)
     cam = PinholeCamera.create(400.0, 400.0, 320.0, 240.0, 640, 480)

@@ -13,17 +13,17 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ethzasl_brisk_tpu.detect.ast_scale_space import (  # noqa: E402
+from ethzasl_brisk_jax.detect.ast_scale_space import (  # noqa: E402
     detect_ast_keypoints,
 )
-from ethzasl_brisk_tpu.pipeline import BriskFeatureDetector  # noqa: E402
+from ethzasl_brisk_jax.pipeline import BriskFeatureDetector  # noqa: E402
 
 from .conftest import TEST_DATA  # noqa: E402
 
 
 @pytest.fixture(scope="module")
 def image():
-    from ethzasl_brisk_tpu.core.image_io import read_pgm
+    from ethzasl_brisk_jax.core.image_io import read_pgm
 
     p = TEST_DATA / "img1.pgm"
     if not p.exists():
@@ -102,7 +102,7 @@ class TestPatternGoldens:
     def test_pattern_matches_compiled_reference(self, version):
         import pathlib
 
-        from ethzasl_brisk_tpu.core.pattern import (
+        from ethzasl_brisk_jax.core.pattern import (
             brisk_v1_pattern,
             brisk_v2_pattern,
         )
@@ -200,7 +200,7 @@ class TestV1Resamplers:
     def test_v1_resamplers_match_scalar(self, shape):
         import jax.numpy as jnp
 
-        from ethzasl_brisk_tpu.kernels.downsample import (
+        from ethzasl_brisk_jax.kernels.downsample import (
             halfsample8_v1,
             twothirdsample8_v1,
         )

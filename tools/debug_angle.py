@@ -10,8 +10,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from ethzasl_brisk_tpu.core.golden import read_set
-from ethzasl_brisk_tpu.core.pattern import brisk_v2_pattern
+from ethzasl_brisk_jax.core.golden import read_set
+from ethzasl_brisk_jax.core.pattern import brisk_v2_pattern
 
 SET = "/root/reference/brisk/src/test/test_data/brisk_verification_harris.set"
 
@@ -91,11 +91,11 @@ def scalar_smoothed_intensity(image, integral, key_x, key_y, pat, scale, rot,
 def main():
     import jax.numpy as jnp
 
-    from ethzasl_brisk_tpu.describe.extractor import (
+    from ethzasl_brisk_jax.describe.extractor import (
         BriskExtractor,
         smoothed_intensity_u8,
     )
-    from ethzasl_brisk_tpu.kernels.integral import integral_image_i32
+    from ethzasl_brisk_jax.kernels.integral import integral_image_i32
 
     entries = read_set(SET)
     e = entries[0]

@@ -37,7 +37,7 @@ def parse_ptn(path: str):
 def main():
     src = sys.argv[1]
     dst = sys.argv[2] if len(sys.argv) > 2 else (
-        "ethzasl_brisk_tpu/core/brisk_v2_pattern.npz")
+        "ethzasl_brisk_jax/core/brisk_v2_pattern.npz")
     pts, short_pairs, long_pairs = parse_ptn(src)
     np.savez_compressed(
         dst,

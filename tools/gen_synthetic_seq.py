@@ -1,10 +1,10 @@
 """Generate a synthetic monocular sequence with KITTI-format ground truth.
 
-Renders a textured two-depth scene (tests/test_vo.render_scene) from a
+Renders a textured two-depth scene (workloads.render_scene) from a
 smooth forward+turn trajectory and writes frame_%04d.pgm plus poses.txt
 (KITTI odometry format: 12 numbers per line, world-from-camera [R|t]).
 Used to validate tools/kitti_eval.py until real KITTI/TUM data is
-available in the image (zero egress — NOTES.md round-2 item 1).
+available (nothing is downloaded).
 
 Usage: python tools/gen_synthetic_seq.py <out_dir> [--frames N]
 """
@@ -28,11 +28,10 @@ def main():
 
     from scipy import ndimage
 
-    from ethzasl_brisk_tpu.core.image_io import write_pgm
-    from ethzasl_brisk_tpu.geometry import PinholeCamera
+    from ethzasl_brisk_jax.core.image_io import write_pgm
+    from ethzasl_brisk_jax.geometry import PinholeCamera
 
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-    from tests.test_vo import render_scene
+    from ethzasl_brisk_jax.workloads import render_scene
 
     out = pathlib.Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,7 @@
 """Worker for the two-process multi-host test (tools/test via pytest).
 
 Each process owns 4 virtual CPU devices; jax.distributed.initialize forms
-an 8-device global mesh across the process boundary (the DCN analog).
+an 8-device global mesh across the process boundary (the multi-host case).
 Runs the landmark-sharded distributed BA (parallel/dist_ba.py) on a
 deterministic synthetic problem and process 0 writes the final cost for
 the parent to check.
@@ -32,9 +32,9 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ethzasl_brisk_tpu.ba import BaProblem
-from ethzasl_brisk_tpu.parallel import make_mesh
-from ethzasl_brisk_tpu.parallel.dist_ba import (
+from ethzasl_brisk_jax.ba import BaProblem
+from ethzasl_brisk_jax.parallel import make_mesh
+from ethzasl_brisk_jax.parallel.dist_ba import (
     partition_problem,
     solve_window_ba_sharded,
 )
@@ -96,9 +96,9 @@ with mesh:
 
 # ---- Partitioned pose graph across the same multi-process mesh ----
 # (config 5: edges sharded over 'model', cross-process psum per GN step).
-from ethzasl_brisk_tpu.ba.pose_graph import PoseGraph
-from ethzasl_brisk_tpu.ba.se3 import so3_exp
-from ethzasl_brisk_tpu.parallel.dist_pg import (
+from ethzasl_brisk_jax.ba.pose_graph import PoseGraph
+from ethzasl_brisk_jax.ba.se3 import so3_exp
+from ethzasl_brisk_jax.parallel.dist_pg import (
     optimize_pose_graph_sharded,
     partition_edges,
 )

@@ -25,40 +25,6 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
-def make_texture(rng, h=1024, w=1024):
-    import numpy as np
-    from scipy import ndimage
-
-    # Multi-octave noise: structure at several scales so BRISK finds
-    # corners at every pyramid level.
-    tex = np.zeros((h, w))
-    for sigma, amp in ((1.5, 1.0), (6.0, 1.0), (24.0, 0.8)):
-        tex += amp * ndimage.gaussian_filter(
-            rng.uniform(-1, 1, (h, w)), sigma
-        ) / max(sigma / 8.0, 1.0)
-    tex = (tex - tex.min()) / (np.ptp(tex) + 1e-9)
-    return (tex * 255).astype(np.uint8)
-
-
-def trajectory(n):
-    """Smooth arc: forward motion + gentle yaw + lateral sway."""
-    import numpy as np
-
-    poses = []
-    for i in range(n):
-        a = 0.004 * i
-        yaw = np.array(
-            [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
-             [-np.sin(a), 0, np.cos(a)]]
-        )
-        t = np.array(
-            [0.05 * i + 0.01 * np.sin(0.08 * i), 0.004 * np.sin(0.05 * i),
-             0.012 * i]
-        )
-        poses.append((yaw, t))
-    return poses
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=200)
@@ -73,7 +39,7 @@ def main():
                     help="texture/occluder RNG seed (trajectory fixed); "
                          "the 200-frame ATE is chaotic under small "
                          "detector changes, so robustness claims need "
-                         "several seeds — NOTES r4")
+                         "several seeds")
     ap.add_argument("--export", default=None,
                     help="write frames as PGM + KITTI poses.txt to DIR "
                          "(for tools/kitti_eval.py keyframed+BA runs) "
@@ -87,18 +53,20 @@ def main():
 
     import numpy as np
 
-    sys.path.insert(0, "/root/repo")
-    from tests.test_vo import render_scene
-
-    from ethzasl_brisk_tpu.geometry import PinholeCamera
-    from ethzasl_brisk_tpu.pipeline import BriskFeature
-    from ethzasl_brisk_tpu.vo import VoConfig, VoFrontend
-    from ethzasl_brisk_tpu.vo.evaluate import ate_rmse, rpe
+    from ethzasl_brisk_jax.geometry import PinholeCamera
+    from ethzasl_brisk_jax.pipeline import BriskFeature
+    from ethzasl_brisk_jax.vo import VoConfig, VoFrontend
+    from ethzasl_brisk_jax.vo.evaluate import ate_rmse, rpe
+    from ethzasl_brisk_jax.workloads import (
+        make_texture,
+        render_scene,
+        vo_trajectory,
+    )
 
     rng = np.random.default_rng(args.seed)
     tex = make_texture(rng)
     cam = PinholeCamera.create(400.0, 400.0, 320.0, 240.0, 640, 480)
-    poses = trajectory(args.frames)
+    poses = vo_trajectory(args.frames)
 
     occ_tex = make_texture(rng, 160, 200)
     frames = []
@@ -119,7 +87,7 @@ def main():
           f"({'stress' if args.stress else 'clean'})", flush=True)
 
     if args.export:
-        from ethzasl_brisk_tpu.core.image_io import write_pgm
+        from ethzasl_brisk_jax.core.image_io import write_pgm
 
         out = pathlib.Path(args.export)
         out.mkdir(parents=True, exist_ok=True)
